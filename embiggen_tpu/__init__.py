@@ -1,4 +1,4 @@
-"""embiggen_tpu — a TPU-native graph representation-learning framework.
+"""embiggen_tpu — a JAX graph representation-learning framework.
 
 Brand-new JAX/XLA/Pallas implementation of the capability surface of Embiggen
 (the graph-ML half of GRAPE): node embedding, edge prediction, edge-label

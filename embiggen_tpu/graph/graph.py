@@ -1,4 +1,4 @@
-"""Immutable CSR graph container — the TPU-native replacement of the ensmallen
+"""Immutable CSR graph container — the JAX counterpart of the ensmallen
 Graph object (reference usage census: SURVEY.md §2.9; e.g. reference
 `embiggen/utils/abstract_gcn.py:136-147`, `graph_embedding_pipeline.py:92`).
 

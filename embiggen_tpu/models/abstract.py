@@ -58,7 +58,7 @@ class AbstractModel:
 
     @classmethod
     def library_name(cls) -> str:
-        return "TPU"
+        return "JAX"
 
     # ------------------------------------------------------------ capabilities
     @classmethod

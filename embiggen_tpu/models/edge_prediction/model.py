@@ -159,9 +159,9 @@ class AbstractEdgePredictionModel(AbstractClassifierModel):
     # (src, dst) index arrays are synthesized from the flat pair index, so
     # the product is never materialized on the host.
     # The reference uses prediction_batch_size=2**15 sized for host numpy
-    # pipelines; on TPU each chunk is one jitted dispatch with fixed
-    # overhead (tens of ms through a remote runtime), and a [2^20] pair
-    # batch is still tiny on-device — 32x fewer dispatches at bench scale.
+    # pipelines; here each chunk is one jitted dispatch with a fixed
+    # overhead, and a [2^20] pair batch is still small on the device —
+    # 32x fewer dispatches than 2^15.
     PREDICTION_CHUNK_SIZE = 1 << 20
 
     def _score_pair_product(

@@ -6,8 +6,8 @@ wrappers — DeepWalk/SkipGram/Walklets/HOPE/LaplacianEigenmaps/GLEE/SocioDim
 — are already covered by the native walk-based and spectral families).
 
 Design: these models are dense-linear-algebra shaped (matrix powers, log
-filters, truncated factorizations), which maps directly onto the MXU — the
-heavy matmuls run in jnp on device; truncated SVDs use randomized SVD on
+filters, truncated factorizations), which maps directly onto dense
+matrix products — the heavy matmuls run in jnp on device; truncated SVDs use randomized SVD on
 host (as KarateClub itself does via sklearn)."""
 from __future__ import annotations
 

@@ -1,4 +1,4 @@
-"""Knowledge-graph-embedding model family — the native TPU counterpart of
+"""Knowledge-graph-embedding model family — the JAX counterpart of
 the reference's PyKEEN adapter surface
 (`embiggen/embedders/pykeen_embedders/*.py`: TransR/TransD/TransF/RotatE/
 ComplEx/DistMult/HolE/ConvE/BoxE/CrossE/DistMA/ERMLP(E)/NodePiece/PairRE/

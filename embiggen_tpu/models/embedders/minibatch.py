@@ -1,5 +1,5 @@
-"""Shared minibatch-SGD training skeleton with multi-chip data parallelism —
-the TPU-native generalization of the reference's base-class distribution flag
+"""Shared minibatch-SGD training skeleton with multi-device data parallelism
+— the generalization of the reference's base-class distribution flag
 (`embiggen/embedders/tensorflow_embedders/tensorflow_embedder.py:73-79,234-240`:
 every Keras embedder gets `use_mirrored_strategy`). Here every
 edge/triple/entry-minibatch embedder family (LINE, siamese, the KGE family,
@@ -387,16 +387,18 @@ class MinibatchEmbedder(AbstractEmbeddingModel):
                 "training hooks; falling back to single-device training."
             )
             return "none"
-        if self._distribution == "rows" or (
-            self._distribution == "auto"
-            and sum(
+        from ...parallel.mesh import auto_distribution
+
+        keys = self._row_sharded_keys(graph, params)
+        wanted = self._distribution
+        if wanted == "auto":
+            table_bytes = sum(
                 int(np.prod(t.shape)) * 4
-                for n, t in params.items()
-                if n in self._row_sharded_keys(graph, params)
+                for n, t in params.items() if n in keys
             )
-            > (8 << 30)
-        ):
-            if not self._row_sharded_keys(graph, params):
+            wanted = auto_distribution(table_bytes, mesh.devices.flat[0])
+        if wanted == "rows":
+            if not keys:
                 import warnings
 
                 warnings.warn(

@@ -6,7 +6,7 @@ geometric_laplacian_eigenmaps,sociodim}.py` (HOPE metric list at
 
 These are deterministic decompositions; similarity matrices are assembled as
 scipy sparse operators host-side (as the reference does via scipy
-`svds/eigsh/eigh`), since truncated eigensolvers are not the TPU hot path.
+`svds/eigsh/eigh`), since truncated eigensolvers are not the device hot path.
 """
 from __future__ import annotations
 

@@ -84,7 +84,7 @@ class _WalkletsBase(WalkBasedEmbedder):
     def _sample_walklets(self, dg: DeviceGraph, key):
         # Negatives are PER WALK ([B, K] — each walk's stride pairs
         # contrast against its own K draws), the scale-correct regime (see
-        # PERF_NOTES §8): a batch-shared set accumulates a
+        # `WalkBasedEmbedder._sample_batch`): a batch-shared set accumulates a
         # pair-count-sized gradient sum on K rows at production batches.
         k_walk, k_neg = jax.random.split(key)
         walks = self._walks(dg, k_walk)

@@ -1,4 +1,4 @@
-"""GCN core: functional encoder + training loop — the TPU-native counterpart
+"""GCN core: functional encoder + training loop — the JAX counterpart
 of the reference's `AbstractGCN` (`embiggen/utils/abstract_gcn.py:201-1066`).
 
 The reference assembles Keras graphs with sparse-tensor inputs and

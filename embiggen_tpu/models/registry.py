@@ -34,7 +34,7 @@ def get_model_from_library(
     task_name: Optional[str] = None,
     library_name: Optional[str] = None,
 ) -> type:
-    """Resolve a model class by name; prefers the native 'TPU' library on
+    """Resolve a model class by name; prefers the native 'JAX' library on
     ambiguity (the reference prefers 'Ensmallen', `abstract_model.py:674`)."""
     candidates = []
     tasks = [task_name] if task_name else list(MODELS_LIBRARY)
@@ -61,7 +61,7 @@ def get_model_from_library(
             + f". Available models: {available}"
         )
     for cls in candidates:
-        if cls.library_name() == "TPU":
+        if cls.library_name() == "JAX":
             return cls
     return candidates[0]
 

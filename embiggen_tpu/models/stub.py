@@ -1,5 +1,5 @@
 """Graceful-degradation stubs for models whose backing library is not
-installed — the TPU-native counterpart of the reference's stub machinery
+installed — the counterpart of the reference's stub machinery
 (`embiggen/utils/abstract_models/model_stub.py:93-243`, validated in-tree by
 the deliberately unimportable `non_existent_embedders/non_existent_model.py:1-13`).
 

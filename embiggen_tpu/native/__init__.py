@@ -1,9 +1,12 @@
-"""Native (C++) host components, loaded via ctypes with lazy on-demand
-compilation (g++ -O3). Falls back to the pure-Python paths when no compiler
-is available."""
+"""Native (C++) host components, loaded via ctypes. The library is not
+shipped: it is compiled (g++ -O3 -march=native) from the sources beside
+this file on first use, on the host that runs it, and rebuilt when a
+source is newer. Falls back to the pure-Python paths when no compiler is
+available; `get_lib()` returning None says so."""
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import os
 import subprocess
 from typing import Optional, Tuple
@@ -35,34 +38,49 @@ class _ParsedEdgeList(ctypes.Structure):
 _SOURCES = ("edge_list_parser.cpp", "graph_algos.cpp")
 
 
+def _stale() -> bool:
+    return not os.path.exists(_LIB_PATH) or any(
+        os.path.getmtime(_LIB_PATH)
+        < os.path.getmtime(os.path.join(_HERE, s))
+        for s in _SOURCES
+    )
+
+
 def _build() -> bool:
+    """Compile the library. Concurrent processes (e.g. test workers) take
+    an exclusive lock; the first builds into a temporary file renamed into
+    place, so no process ever loads a half-written library."""
     srcs = [os.path.join(_HERE, s) for s in _SOURCES]
+    tmp = f"{_LIB_PATH}.{os.getpid()}.tmp"
     try:
-        subprocess.run(
-            [
-                "g++", "-O3", "-march=native", "-shared", "-fPIC",
-                "-std=c++17", *srcs, "-o", _LIB_PATH, "-lpthread",
-            ],
-            check=True,
-            capture_output=True,
-            timeout=120,
-        )
+        with open(_LIB_PATH + ".lock", "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            if not _stale():
+                return True
+            subprocess.run(
+                [
+                    "g++", "-O3", "-march=native", "-shared", "-fPIC",
+                    "-std=c++17", *srcs, "-o", tmp, "-lpthread",
+                ],
+                check=True,
+                capture_output=True,
+                timeout=300,
+            )
+            os.replace(tmp, _LIB_PATH)
         return True
-    except Exception:
+    except (OSError, subprocess.SubprocessError):
         return False
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
 
 
 def get_lib() -> Optional[ctypes.CDLL]:
     global _lib
     if _lib is not None:
         return _lib
-    if not os.path.exists(_LIB_PATH) or any(
-        os.path.getmtime(_LIB_PATH)
-        < os.path.getmtime(os.path.join(_HERE, s))
-        for s in _SOURCES
-    ):
-        if not _build():
-            return None
+    if _stale() and not _build():
+        return None
     try:
         lib = ctypes.CDLL(_LIB_PATH)
     except OSError:

@@ -124,7 +124,7 @@ int64_t connected_components(const int32_t* sources, const int32_t* dests,
 // Multithreaded random-walk kernel — the in-repo stand-in for GRAPE's Rust
 // walker (the reference's out-of-tree hot loop behind `graph.node2vec`,
 // call site embiggen/sequences/node2vec_sequence.py:190-203). bench.py uses
-// it as the best-effort multicore-CPU baseline that the TPU kernels are
+// it as the best-effort multicore-CPU baseline that the device kernels are
 // compared against (an honest `vs_baseline`, unlike a numpy proxy).
 //
 // First-order: uniform neighbour pick, one xorshift draw per step.
@@ -342,8 +342,7 @@ void dag_mica_block(const int64_t* indptr, const int32_t* ranks,
 // edge either into the [n_out, k] padded block or the per-row overflow
 // segment; combiner denominators (sum |w|, sum w^2) accumulate in the same
 // pass. Input does NOT need to be row-sorted — this is what lets the
-// transposed kernel build skip the O(E log E) argsort that dominated
-// gcn_setup_pad_coo_s in BENCH_r03 (VERDICT r3 weak-point 1).
+// transposed kernel build skip an O(E log E) argsort.
 // cols_pad/vals_pad are [n_out*k]; ov_* must have capacity
 // e - sum(min(deg, k)); absw/sqw are [n_out]. All outputs are fully
 // written here (no pre-zeroing needed).

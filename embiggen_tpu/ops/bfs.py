@@ -1,12 +1,12 @@
 """On-device multi-source BFS / shortest-path distances via min-plus edge
-propagation — the TPU-native form of the BFS kernels behind the reference
+propagation — the on-device form of the BFS kernels behind the reference
 engine's SPINE/WINE sketch embedders (SURVEY.md §2.2 "degree/label
 propagation sketches") and the visualizer's distance queries.
 
 distances[:, j] = shortest hop (or weighted) distance from anchor set j.
 Each iteration is one segment-min over edges — a sparse min-plus product —
-so D anchor sets propagate simultaneously as a [N, D] dense matrix, which is
-exactly the layout the MXU/VPU wants.
+so D anchor sets propagate simultaneously as a [N, D] dense matrix, one
+wide elementwise pass per iteration.
 """
 from __future__ import annotations
 

@@ -4,7 +4,7 @@ HyperSketching (reference `ensmallen.models.HyperSketching` via
 
 HLL union is register-wise max, so the k-hop sketch propagation is one
 `segment_max` over edges per hop — the same sparse-propagation shape as the
-SpMM/BFS kernels, fully parallel on the VPU.
+SpMM/BFS kernels, fully parallel over registers and nodes.
 """
 from __future__ import annotations
 

@@ -1,4 +1,4 @@
-"""On-device minibatch and negative sampling — TPU-native replacement for the
+"""On-device minibatch and negative sampling — the counterpart of the
 reference engine's `get_edge_prediction_mini_batch` (reference call site
 `embiggen/sequences/gcn_edge_prediction_training_sequence.py:174-250`),
 `get_siamese_mini_batch[_with_edge_types]` (`siamese_sequence.py:72-91`) and

@@ -6,16 +6,17 @@ Replaces the reference's `embedding_ops.embedding_lookup_sparse_v2` hot op in
 
 Two formulations:
 
-1. `spmm` — COO + `segment_sum`. General, but TPU lowers scatter-add into a
-   serialized scatter pipeline, so it is latency-bound. Kept for the small /
-   generic path (feature preprocessor, SPINE sketches).
-2. `PaddedKernel` + `spmm_padded` — the production GCN path. The kernel is
+1. `spmm` — COO + `segment_sum`: one gathered row per edge, summed into
+   its output row by a scatter-add (atomics on a GPU). General; used by
+   the small / generic paths (feature preprocessor, SPINE sketches) and as
+   the reference the ELL path is tested against.
+2. `PaddedKernel` + `spmm_padded` — the GCN path. The kernel is
    re-laid-out host-side into an ELLPACK-style padded neighbour matrix
-   [N, K] (K = capped max row length) plus a COO overflow list for rows
-   longer than K. The SpMM is then *gather-only*: per node-chunk, gather
-   [C, K, D] feature rows and contract the K axis on the VPU — no
-   scatter anywhere, writes are contiguous. HBM traffic ≈
-   N·K·D·4 bytes, which is the speed-of-light bound for a row-gather SpMM.
+   [N, K] (K = `ELL_WIDTH`, less when every row is shorter) plus a COO
+   overflow list for rows longer than K. The SpMM is then
+   gather-and-contract: K full-height row gathers, weighted and summed
+   elementwise — no scatter for the padded part, contiguous writes. Device-memory traffic ≈
+   N·K·D·4 bytes, the bound for a row-gather SpMM.
 
 Combiners mirror the reference surface: sum / mean / sqrtn
 (`graph_convolution_layer.py:16-174`).
@@ -125,38 +126,33 @@ def coo_to_device(
 
 
 # --------------------------------------------------------------------------
-# Single-K ELLPACK SpMM — the production GCN fast path.
-#
-# TPU has no efficient scatter (segment_sum lowers to a serialized scatter
-# pipeline), but XLA's *flat-index row gather* runs at the chip's gather-
-# descriptor rate. Measured on TPU v5e (D=128 f32): the fused
-# gather→weight→K-reduce runs at 113 M gathered rows/s for 100k-row ops,
-# 145 M at 200k, 170 M at 400k and ~190 M at 1M+ rows — op SIZE, not
-# contraction width, sets the rate (K ∈ [4, 64] is flat). The round-2
-# bucketed layout split the kernel into ~9 per-degree buckets of 2k-340k
-# rows each plus an inverse-permutation gather, paying the small-op rate
-# several times over (~90 M rows/s end to end). Hence this layout:
+# Single-K ELLPACK SpMM — the GCN path.
 #
 #   * ONE [n_out, K] padded neighbour table in natural row order — a single
-#     maximal gather-contract op, no permutation, contiguous writes;
-#   * K chosen from the degree histogram by minimizing the measured cost
-#     model  n_out*K / gather_rate + overflow(K) / scatter_rate  — padding
-#     rides the fast gather, long-row tails ride the 2.2x-slower sorted
-#     segment-sum, and the optimum tracks both for uniform AND heavy-tailed
-#     degree distributions;
-#   * rows longer than K send their tail through the segment-sum overflow
-#     path;
+#     full-height gather-contract per slot, no permutation, contiguous
+#     writes;
+#   * K = ELL_WIDTH (fewer when no row is that long, see `_choose_k`);
+#   * rows longer than K send their tail through the sorted segment-sum
+#     overflow path;
 #   * mean/sqrtn denominators are per-row constants of the kernel,
 #     precomputed host-side.
 #
-# The padded slots gather row 0 with weight 0 (repeated-row gathers hit the
-# HBM row buffer; measured cost is the descriptor, same as any gather).
+# The padded slots gather row 0 with weight 0.
 # --------------------------------------------------------------------------
 
-# Measured v5e rates the K-optimizer trades off (relative magnitudes are
-# what matter; both are descriptor-bound, not bandwidth-bound).
-_GATHER_ROWS_PER_S = 190e6
-_SCATTER_ROWS_PER_S = 85e6
+# ELL width. Measured on H100 80GB HBM3 cards (`scripts/spmm_rates.py`,
+# D=128 float32, the "Symmetric Normalized Laplacian" of ER(1M nodes, 10M
+# edges) and of a heavy-tailed graph of that size). A row costs about as
+# much in the gather-contract (4.2e9-4.9e9 rows/s) as in the sorted
+# segment-sum overflow at scale (4.3e9-4.5e9 rows/s at 16M rows, 1.0e9-
+# 1.2e9 at 1M). Forward+backward `spmm_padded`, medians of three rounds on
+# a 700 W card: ER K=4 8.30 ms, K=8 8.44, K=24 9.38; heavy-tailed K=8 5.97
+# (the fastest), K=16 6.73. K=24 and K=16 are what the cost model
+# n_out*K/gather_rate + overflow/scatter_rate picks at those rates (scatter
+# at 1M rows). One single pass on a 400 W card had ER K=8 at 8.63 ms and
+# K=24 at 8.17. Wide padding gains at most a few percent on a uniform
+# graph, loses on a heavy-tailed one, and compile time grows with K.
+ELL_WIDTH = 8
 
 
 @dataclasses.dataclass(frozen=True)
@@ -200,25 +196,11 @@ jax.tree_util.register_pytree_node(
 
 
 def _choose_k(counts: np.ndarray, cap: int, min_k: int) -> int:
-    """Pick the ELLPACK width minimizing the measured gather+overflow cost."""
-    n_out = counts.shape[0]
-    max_deg = int(counts.max(initial=0))
-    hi = min(max(cap, min_k), max(max_deg, min_k))
-    hi = ((hi + 3) // 4) * 4
-    best_k, best_cost = min_k, float("inf")
-    # overflow(K) via the degree histogram tail: sum over rows of (deg - K)+
-    hist = np.bincount(np.minimum(counts, hi + 1))
-    degs = np.arange(hist.shape[0])
-    # degrees clipped into the hist's last bin carry extra excess beyond
-    # what the histogram records, identical for every K <= hi
-    clipped_excess = float(np.maximum(counts - (hi + 1), 0).sum())
-    for k in range(min_k, hi + 1, 4):
-        tail = hist[k + 1:]
-        overflow = float((tail * (degs[k + 1:] - k)).sum()) + clipped_excess
-        cost = (n_out * k) / _GATHER_ROWS_PER_S + overflow / _SCATTER_ROWS_PER_S
-        if cost < best_cost:
-            best_k, best_cost = k, cost
-    return best_k
+    """ELLPACK width for rows of these degrees: ELL_WIDTH, or the longest
+    row rounded up to a multiple of 4 when that is shorter, bounded by
+    `cap` and at least `min_k`."""
+    widest = ((int(counts.max(initial=0)) + 3) // 4) * 4
+    return max(min_k, min(cap, ELL_WIDTH, widest))
 
 
 def pad_coo(
@@ -233,8 +215,9 @@ def pad_coo(
 ) -> PaddedKernel:
     """Host-side relayout of a COO kernel into a single-K PaddedKernel.
 
-    `cap` bounds the ELLPACK width; per-row edges beyond the chosen K
-    overflow to the COO segment-sum path. `min_k` is the narrowest width.
+    `cap` bounds the ELLPACK width (see `_choose_k`); per-row edges beyond
+    the chosen K overflow to the COO segment-sum path. `min_k` is the
+    narrowest width.
     `with_transpose` additionally builds the transposed kernel (`pk_t`,
     [n_in, K_t] over n_in = `n_in` or `n_out`), enabling the gather-only
     custom VJP used by GCN training."""
@@ -256,8 +239,7 @@ def pad_coo(
     # `native/graph_algos.cpp::ell_relayout`) — it accepts UNSORTED COO, so
     # the transposed kernel (cols, rows) costs the same O(E) as the forward
     # one instead of an O(E log E) argsort; combiner denominators
-    # accumulate in the same pass. BENCH_r03's 14.2s gcn_setup_pad_coo_s at
-    # 20M arcs was this host stage (VERDICT r3 weak-point 1).
+    # accumulate in the same pass.
     from .. import native
 
     got = native.ell_relayout(rows, cols, vals, int(n_out), k, n_overflow)
@@ -320,13 +302,11 @@ def pad_coo(
 def _ell_spmm(cols_pad, vals_pad, xf):
     """Gather-contract: out[r] = sum_k vals[r,k] * x[cols[r,k]].
 
-    Contracted as K accumulated full-height 2-D gathers — each gather is an
-    [n_out]-row op (the maximal op size, where the v5e gather engine peaks at
-    ~190 M rows/s) and the weighted add fuses elementwise behind it. The
-    [n_out, K, D] 3-D formulation is NOT used: reshaping the gather to
-    [n_out, K, D] repacks sublanes whenever K % 8 != 0, which blocks XLA's
-    gather→reduce fusion and materializes the 3-D intermediate in HBM
-    (~10 GB at bench scale, OOM)."""
+    Contracted as K accumulated full-height 2-D gathers: each gather is an
+    [n_out]-row op and the weighted add fuses elementwise behind it, so no
+    [n_out, K, D] intermediate is ever materialized (10 GB at K=20,
+    D=128, 1M rows). The Python loop unrolls K gathers into the program,
+    so compile time grows with K."""
     nb, k = cols_pad.shape
     out = vals_pad[:, 0:1] * xf[cols_pad[:, 0]]
     for j in range(1, k):
@@ -377,9 +357,9 @@ def _spmm_padded_fwd(pk, x, combiner):
 def _spmm_padded_bwd(combiner, pk, g):
     """d/dx of y = D^-1 A x is A^T D^-1 g — ONE transposed gather-SpMM.
     Autodiff of the gather formulation would instead emit an unsorted
-    scatter-add over every edge (~10x slower on TPU); the host-precomputed
-    `pk_t` keeps the backward on the gather engine too. Kernel weights are
-    structural constants: zero cotangents."""
+    scatter-add over every gathered row; the host-precomputed `pk_t` keeps
+    the backward a gather-contract too. Kernel weights are structural
+    constants: zero cotangents."""
     gf = g.astype(jnp.float32)
     if combiner == "mean":
         gf = gf / jnp.maximum(pk.abs_weight_sum, 1e-9)[:, None]

@@ -1,4 +1,4 @@
-"""On-device random-walk generation — the TPU-native replacement of the
+"""On-device random-walk generation — the JAX counterpart of the
 reference engine's Rust walk kernel behind `graph.node2vec(...)` (reference
 call site `embiggen/sequences/node2vec_sequence.py:190-203`) and the walk
 hyper-parameter surface of
@@ -263,11 +263,11 @@ def _second_order_step_ell(
     4*cap bytes per walker); the p/q classification needs no further memory
     access: `is_return` compares against the carried `prev` id and
     `is_common` compares candidates against the carried `prev_row`
-    in-register (the previous step's gather), in 32-wide slabs the VPU
-    fuses. Element-gather-per-candidate designs (rejection sampling with CSR
-    binary search, `_second_order_step_rejection`) are descriptor-bound at
-    ~50 gathers/step ≈ 1.6M steps/s on TPU v5e; this kernel measures ~20M
-    steps/s on the 1M-node bench graph.
+    in-register (the previous step's gather), in 32-wide slabs that fuse
+    into one elementwise pass. Element-gather-per-candidate designs
+    (rejection sampling with CSR binary search,
+    `_second_order_step_rejection`) issue ~50 dependent element gathers per
+    step instead of one row gather.
 
     Exactness contract (ADVICE r3 medium): when `dg.ell_cap >= max_degree`
     the sampler is EXACT — candidates and the `is_common` membership test

@@ -1,7 +1,13 @@
-"""Multi-host initialization + holdout-level parallelism — the TPU-native
-replacement of the reference's SLURM round-robin holdout scheduling
+"""Multi-host initialization + holdout-level parallelism — the counterpart
+of the reference's SLURM round-robin holdout scheduling
 (`abstract_classifier_model.py:2788-2804,2917-2993`) plus the
 `jax.distributed` bring-up the reference has no equivalent of (SURVEY §5.8).
+
+Holdout workers are separate processes, and a JAX process reserves most of
+a card's memory when it starts, so each worker takes its own card: start
+worker i with `CUDA_VISIBLE_DEVICES=i EMBIGGEN_TPU_WORKER_ID=i
+EMBIGGEN_TPU_WORKER_COUNT=<workers>`. Nothing in this package starts a
+second JAX process itself.
 """
 from __future__ import annotations
 

@@ -4,11 +4,10 @@ along the embedding dimension ("model" axis).
 Why dim-sharding (vs row-sharding or data parallelism): row gathers become
 local column-slice gathers with ZERO communication; the only collective is a
 `psum` of the per-shard partial dot products to form the NCE logits — a few
-KB per step over ICI. Gradients w.r.t. each table shard are exact locally
-(the logit adjoints are replicated after the psum), so the sparse
-scatter-add SGD update needs no gradient synchronization at all. This is the
-TPU-native replacement for the reference's single-host Rust trainer
-parallelism (SURVEY.md §2.10).
+KB per step. Gradients w.r.t. each table shard are exact locally (the logit
+adjoints are replicated after the psum), so the sparse scatter-add SGD
+update needs no gradient synchronization at all. This is the counterpart of
+the reference's single-host Rust trainer parallelism (SURVEY.md §2.10).
 """
 from __future__ import annotations
 
@@ -154,7 +153,7 @@ def make_dp_skipgram_step(
     walks its OWN batch (PRNG folded with the axis index), and the sparse
     per-batch gradients are exchanged as (indices, rows) pairs via
     `all_gather` — communication ∝ global batch size, never [N, D]. This is
-    the TPU-native upgrade of the reference's MultiWorkerMirroredStrategy
+    the counterpart of the reference's MultiWorkerMirroredStrategy
     data parallelism (`tensorflow_embedder.py:73-79,234-240`), which
     all-reduces DENSE embedding gradients. Suits small-to-medium tables with
     large batches; for HBM-bounded tables use the dim-sharded

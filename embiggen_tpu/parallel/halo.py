@@ -23,10 +23,9 @@ communication, volume ∝ boundary nodes, NOT N) -> local aggregation
 -> add. Output stays row-sharded, ready for the next layer.
 
 Local and halo aggregation use the same single-K ELLPACK gather-contract
-layout as the single-chip `ops/spmm.py::spmm_padded` (per-shard [S, K]
-neighbour tables + a COO segment-sum overflow for long rows): on TPU the
-gather engine runs ~2.2x faster than the sorted-scatter pipeline a
-segment-sum formulation pays (PERF_NOTES §1-2).
+layout as the single-device `ops/spmm.py::spmm_padded` (per-shard [S, K]
+neighbour tables + a COO segment-sum overflow for long rows), with K chosen
+by the same rule (`ops/spmm.py::_choose_k`).
 """
 from __future__ import annotations
 

@@ -1,6 +1,8 @@
-"""Device-mesh helpers for multi-chip scaling (SURVEY.md §5.8: the reference
-has no inter-node communication at all — this subsystem is new capability,
-built on `jax.sharding.Mesh` + `shard_map` so collectives ride ICI)."""
+"""Device-mesh helpers for multi-device training (SURVEY.md §5.8: the
+reference has no inter-node communication at all — this subsystem is new
+capability, built on `jax.sharding.Mesh` + `shard_map`; XLA lowers the
+collectives to NCCL on GPUs). Meshes are flat 1-D device lists: the cards
+of one host are joined all to all, so no device order is preferred."""
 from __future__ import annotations
 
 from typing import Optional, Sequence, Tuple
@@ -8,6 +10,23 @@ from typing import Optional, Sequence, Tuple
 import jax
 import numpy as np
 from jax.sharding import Mesh
+
+# Share of one device's allocatable memory (`memory_stats()["bytes_limit"]`)
+# that replicated embedding tables may take before "auto" distribution
+# switches from data-parallel (replicated tables) to row-sharded tables.
+# The rest is left for walk buffers, gathered rows and gradients.
+REPLICATED_TABLE_SHARE = 0.5
+
+
+def auto_distribution(table_bytes: int, device) -> str:
+    """'rows' when replicating `table_bytes` of tables on `device` would
+    exceed `REPLICATED_TABLE_SHARE` of its memory, else 'data'. A backend
+    that reports no memory limit (the CPU) gets 'data'."""
+    stats = device.memory_stats() or {}
+    limit = stats.get("bytes_limit")
+    if not limit:
+        return "data"
+    return "rows" if table_bytes > REPLICATED_TABLE_SHARE * limit else "data"
 
 
 def make_mesh(
@@ -26,8 +45,8 @@ def make_mesh(
 
 def resolve_mesh(mesh, axis: str = "data") -> Optional[Mesh]:
     """Normalize the `mesh` argument every production model accepts
-    (the TPU-native upgrade of the reference's `use_mirrored_strategy`
-    flag, `tensorflow_embedder.py:73-79`):
+    (the counterpart of the reference's `use_mirrored_strategy` flag,
+    `tensorflow_embedder.py:73-79`):
 
     - None        -> None (single-device training)
     - jax.sharding.Mesh -> itself (must be 1-D)

@@ -1,4 +1,4 @@
-"""Row-sharded embedding tables — the TPU-native replacement for the
+"""Row-sharded embedding tables — the counterpart of the
 reference's mmap-backed out-of-core embedding matrices (reference
 `ensmallen_embedders/node2vec_skipgram.py:25-26` `central_nodes_embedding_path`
 etc., SURVEY §2.10 "Out-of-core scale"): instead of spilling [N, D] to disk,

@@ -2,10 +2,10 @@
 
 The reference has only coarse wall-clock phase timing recorded into the
 evaluation report (ref `abstract_classifier_model.py:2431-2508,2904-2915`);
-the TPU build adds real JAX profiler integration on top of the same
+this package adds real JAX profiler integration on top of the same
 phase-timing surface:
 
-- `trace(log_dir)` — capture an XLA/TPU profile (TensorBoard format) around
+- `trace(log_dir)` — capture an XLA device profile (TensorBoard format) around
   any block; safe no-op fallback when the profiler backend is unavailable.
 - `annotate(name)` — named host-side trace annotation that shows up inside
   a captured profile (wraps `jax.profiler.TraceAnnotation`).

@@ -26,19 +26,19 @@ def _typed_weighted_karate():
 
 
 GRAPH = _typed_weighted_karate()
-# Stub models (e.g. "Non Existent Model") have no TPU implementation; the
+# Stub models (e.g. "Non Existent Model") have no JAX implementation; the
 # stub machinery has its own tests in test_registry_parity.py.
 EMBEDDERS = sorted(
     name
     for name, libs in MODELS_LIBRARY["Node Embedding"].items()
-    if "TPU" in libs
+    if "JAX" in libs
 )
 
 
 @pytest.mark.parametrize("model_name", EMBEDDERS)
 def test_embedder_smoke(model_name):
     kwargs = {}
-    cls = MODELS_LIBRARY["Node Embedding"][model_name]["TPU"]
+    cls = MODELS_LIBRARY["Node Embedding"][model_name]["JAX"]
     if cls.is_stochastic():
         kwargs["random_state"] = 11
     if "Score-based" in model_name:
@@ -60,7 +60,7 @@ def test_model_recreation_sweep():
     """Rebuild each model from parameters() and compare consistent_hash
     (reference `test_model_recreation`)."""
     for model_name in EMBEDDERS:
-        cls = MODELS_LIBRARY["Node Embedding"][model_name]["TPU"]
+        cls = MODELS_LIBRARY["Node Embedding"][model_name]["JAX"]
         kwargs = {"random_state": 11} if cls.is_stochastic() else {}
         model = cls.into_smoke_test(**kwargs)
         params = model.parameters()

@@ -86,7 +86,7 @@ def test_every_registered_sgd_embedder_supports_mesh():
     from embiggen_tpu.models.registry import MODELS_LIBRARY
 
     for name, libs in MODELS_LIBRARY["Node Embedding"].items():
-        cls = libs.get("TPU")
+        cls = libs.get("JAX")
         if cls is None:
             continue
         sig = inspect.signature(cls.__init__)

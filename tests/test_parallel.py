@@ -76,9 +76,10 @@ def test_sharded_skipgram_step(karate):
 
 def test_dryrun_multichip_entry():
     import importlib
+    import os
     import sys
 
-    sys.path.insert(0, "/root/repo")
+    sys.path.insert(0, os.path.dirname(os.path.dirname(__file__)))
     mod = importlib.import_module("__graft_entry__")
     mod.dryrun_multichip(8)
     fn, args = mod.entry()

@@ -277,14 +277,17 @@ def test_spmm_padded_unsorted_coo_and_empty_rows():
 
 
 def test_choose_k_tracks_degree_distribution():
-    """The ELLPACK width chooser balances padding (gather) against
-    overflow (scatter): uniform degrees pick ~the degree, heavy tails
-    pick a small K and push hub tails to the overflow path."""
-    from embiggen_tpu.ops.spmm import _choose_k
+    """The ELLPACK width is ELL_WIDTH slots, narrower only when no row is
+    that long. A gathered row costs the same in the padded block as in the
+    sorted segment-sum overflow on an H100, so wide uniform rows and hub
+    tails both go to the overflow beyond ELL_WIDTH instead of widening K
+    (the uniform-degree-20 case used to pick K=20 under the cost model this
+    rule replaced)."""
+    from embiggen_tpu.ops.spmm import ELL_WIDTH, _choose_k
 
     uniform = np.full(10_000, 20, np.int64)
     k_u = _choose_k(uniform, cap=512, min_k=4)
-    assert k_u == 20, k_u
+    assert k_u == ELL_WIDTH, k_u
 
     # 99% degree-4 rows, 1% degree-5000 hubs: padding everyone to a hub
     # width would cost 1000x the gathers; K must stay near the bulk.
@@ -292,3 +295,8 @@ def test_choose_k_tracks_degree_distribution():
     heavy[:100] = 5000
     k_h = _choose_k(heavy, cap=512, min_k=4)
     assert k_h <= 64, k_h
+
+    narrow = np.full(10_000, 3, np.int64)
+    assert _choose_k(narrow, cap=512, min_k=4) == 4
+    assert _choose_k(uniform, cap=4, min_k=4) == 4
+    assert _choose_k(uniform, cap=12, min_k=12) == 12
